@@ -1,4 +1,4 @@
-"""TPU-native ensemble data-assimilation framework (SCALE-LETKF capabilities).
+"""Ensemble data-assimilation framework in JAX (SCALE-LETKF capabilities).
 
 A from-scratch JAX/XLA/Pallas re-design of the SCALE-LETKF regional NWP
 data-assimilation system (reference: gylien/scale-letkf, Fortran/MPI):

@@ -27,15 +27,6 @@ import tomllib
 
 import numpy as np
 
-# Make JAX_PLATFORMS authoritative: site packages may pre-force a platform
-# (e.g. an accelerator plugin) in a way plain env vars cannot override.
-if os.environ.get("JAX_PLATFORMS"):
-    import jax
-    try:
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-    except Exception:
-        pass
-
 
 def load_config_and_grid(path: str, domain_overrides: dict | None = None):
     """domain_overrides: optional [domain] key overrides (e.g. coarsened
@@ -570,7 +561,7 @@ def main(argv=None):
     p.add_argument("--process-id", type=int, default=0)
     p.add_argument("--local-device-count", type=int, default=None,
                    help="force N virtual host-platform devices per process "
-                        "(CPU test rig; omit on real TPU hosts)")
+                        "(CPU test rig; omit on accelerator hosts)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     q = sub.add_parser("letkf", help="LETKF analysis step")
@@ -655,6 +646,10 @@ def main(argv=None):
         from scale_letkf_tpu.parallel.distributed import init_distributed
         init_distributed(args.coordinator, args.num_processes,
                          args.process_id, args.local_device_count)
+    import jax
+    devs = jax.devices()
+    print(f"[scale_letkf_tpu {args.cmd}] devices: {devs[0].platform} "
+          f"({devs[0].device_kind}) x{len(devs)}", file=sys.stderr)
     args.fn(args)
 
 

@@ -1,4 +1,4 @@
-"""Runtime configuration for the TPU-native SCALE-LETKF framework.
+"""Runtime configuration for the JAX SCALE-LETKF framework.
 
 Mirrors the reference namelist config surface (reference:
 scale/common/common_nml.f90:40-345 — PARAM_ENSEMBLE, PARAM_MODEL,
@@ -43,7 +43,7 @@ class ProcessConfig:
     """PARAM_PROCESS analogue: the device-mesh layout.
 
     The reference maps members onto MPI ranks/nodes (PPN, MEM_NODES,
-    common_nml.f90:54-61, common_mpi_scale.f90:367). TPU-natively this
+    common_nml.f90:54-61, common_mpi_scale.f90:367). Here this
     becomes the shape of the jax device mesh: (member, dom_y, dom_x).
     """
     mesh_member: int = 1   # devices along the ensemble axis
@@ -104,12 +104,12 @@ class LetkfConfig:
     boundary_buffer_width: float = 0.0   # m
     ps_adjust_thres: float = 100.0
     nobs_out: bool = False
-    # eigensolver backend for the batched K×K transform (framework knob, no
-    # reference analogue): 'lax' = jnp.linalg.eigh; 'jacobi' = MXU-native
-    # parallel Jacobi (ops/eigh_jacobi.py), faster at large K on TPU
+    # solver backend for the batched K×K transform (framework knob, no
+    # reference analogue): one of ops/letkf_core.py EIGH_IMPLS; 'auto'
+    # picks by ensemble size and device (resolve_eigh_impl)
     eigh_impl: str = "auto"
     # bf16-packed (dep|hdxb) obs-table gather in the analysis (halves the
-    # element-count-bound TPU gather; hdxb carries ~0.4% of the H(x)
+    # bytes of the per-level gather; hdxb carries ~0.4% of the H(x)
     # perturbation magnitude — same precision class as the bf16 state
     # transport). Set False for strict-f32 selection parity.
     hdxb_gather_bf16: bool = True

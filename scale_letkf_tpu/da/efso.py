@@ -4,7 +4,7 @@ The reference carries an EFSO implementation that is not built (reference:
 scale/letkf/efso.f90:186, efso_tools.f90 — energy norm `lnorm` :52,
 localization advection :158, obs impact :197; das_efso is commented out at
 letkf_tools.f90:1170 and the GFS-era modules are absent). This module
-provides a working TPU-native EFSO.
+provides a working EFSO in JAX.
 
 Estimate of each observation's contribution to forecast-error change:
 
@@ -15,10 +15,10 @@ with X^f the forecast perturbations at evaluation time, C the (moist) total
 energy weights, ē the mean of the forecast errors from the analysis and the
 background (e_{t|0} + e_{t|-6})/2 against a verifying analysis.
 
-TPU-native step: the per-obs localized sums s are a GAUSSIAN CONVOLUTION of
+Array-native step: the per-obs localized sums s are a GAUSSIAN CONVOLUTION of
 the K weighted error fields, computed with separable 1-D convolutions over
 (x, y[, z]) and then sampled at the obs locations — O(K · ngrid · kernel)
-with full MXU/VPU utilization, instead of the reference's per-obs gridpoint
+as dense array work, instead of the reference's per-obs gridpoint
 loops. Negative ΔJ = beneficial observation.
 """
 

@@ -46,12 +46,18 @@ from scale_letkf_tpu.grid import Grid
 from scale_letkf_tpu.da.letkf_obs import ObsContext
 from scale_letkf_tpu.ops.letkf_core import (
     letkf_core, weight_rtpp, weight_rtps, total_weight, relax_beta,
+    resolve_eigh_impl,
 )
 from scale_letkf_tpu.ops.obs_select import (
     gather_candidates, local_weights, limit_obs_topk, gather_obs_data,
     pack_obs_table, gather_obs_data_packed,
 )
 from scale_letkf_tpu.state import IA_P, IA_Q0
+
+# The weight apply is a K-term sum per analysis value; at DEFAULT precision
+# a float32 product may run in TF32 (10-bit mantissa) on the GPU, so it
+# asks for full float32 like the transform itself (ops/letkf_core.py).
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @dataclass
@@ -96,8 +102,8 @@ class _Plan:
     has_obs_good: bool = False   # fused path: per-obs usable mask applied
                                  # to rloc before selection (QC in-graph)
     bf16_gather: bool = True     # bf16-packed (dep|hdxb) table gather —
-                                 # halves the dominant per-level gather
-                                 # (element-count bound on TPU); f32-only
+                                 # halves the bytes of the dominant
+                                 # per-level gather; f32-only
     level_chunk: int = 1         # levels batched per scan iteration (see
                                  # _auto_level_chunk)
 
@@ -107,8 +113,8 @@ def _prep_jit(donate: bool):
     """Mean/perturbation split + scan-layout transposes as ONE jitted
     program. Eager one-op-at-a-time execution would materialize three
     full-state copies; fused (and optionally donating the input buffer)
-    the peak is two — the difference between fitting and OOM at the
-    full-size configs (13.7 GB 18-km state on a 16 GB chip)."""
+    the peak is two at the full-size configs (the 13.7 GB f32 18-km
+    state)."""
     def prep(g):
         K, nv, nz, ny, nx = g.shape
         B = ny * nx
@@ -125,9 +131,8 @@ def _auto_level_chunk(nz: int, B: int, requested: int = 0,
                       target: int = 4096) -> int:
     """Levels per scan iteration. Tiny domains (test grids, the multichip
     dryrun) are launch-bound in a per-level scan, so batch levels until the
-    gridpoint batch reaches ~`target`; production domains keep chunk 1 —
-    measured on v5e, larger chunks LOSE once the selection gathers are
-    payload-carrying sorts (worse locality for the per-level obs gather).
+    gridpoint batch reaches ~`target`; production domains keep chunk 1,
+    which bounds the per-iteration obs-gather buffers.
     Must divide nz."""
     if requested > 0:
         c = min(requested, nz)
@@ -272,6 +277,9 @@ def _build_analysis_fn(plan: _Plan, mesh: Mesh | None):
         packed_g = pack_obs_table(dep_g, hdxb_g) if use_packed else None
         pert_det_zvb = gp_in(pert_det_zvb)
         mean_det_zvb = gp_in(mean_det_zvb)
+        # on a mesh the gridpoint batch of every solve is split
+        eigh_impl = resolve_eigh_impl(plan.eigh_impl, K, dtype,
+                                      sharded=mesh is not None)
 
         def level_body(carry, xs):
             (pert_l, mean_l, infl_l, logp_l, z_l,
@@ -366,7 +374,7 @@ def _build_analysis_fn(plan: _Plan, mesh: Mesh | None):
                                  infl_update=plan.adaptive and g == 0,
                                  depd=depd_gm,
                                  min_infl=max(plan.min_infl, 0.0),
-                                 eigh_impl=plan.eigh_impl)
+                                 eigh_impl=eigh_impl)
                 if g == 0:
                     infl_out = res.infl
 
@@ -376,7 +384,8 @@ def _build_analysis_fn(plan: _Plan, mesh: Mesh | None):
                     w_tot = total_weight(trans_rlx, res.transm, beta)
                     anal_g = mean_l[np.asarray(vidx)][..., None] + jnp.einsum(
                         "vbk,bkm->vbm", pert_g, w_tot,
-                        preferred_element_type=dtype)
+                        preferred_element_type=dtype,
+                        precision=HIGHEST)
                     m_g = jnp.ones((len(vidx), B), dtype)
                 elif plan.relax_alpha_spread != 0.0:
                     # RTPS is per-variable (xb = that variable's perturbations)
@@ -389,12 +398,14 @@ def _build_analysis_fn(plan: _Plan, mesh: Mesh | None):
                         trans_all)
                     anal_g = mean_l[np.asarray(vidx)][..., None] + jnp.einsum(
                         "vbk,vbkm->vbm", pert_g, w_tots,
-                        preferred_element_type=dtype)
+                        preferred_element_type=dtype,
+                        precision=HIGHEST)
                 else:
                     w_tot = total_weight(res.trans, res.transm, beta)
                     anal_g = mean_l[np.asarray(vidx)][..., None] + jnp.einsum(
                         "vbk,bkm->vbm", pert_g, w_tot,
-                        preferred_element_type=dtype)
+                        preferred_element_type=dtype,
+                        precision=HIGHEST)
                     m_g = jnp.ones((len(vidx), B), dtype)
 
                 for j, v in enumerate(vidx):
@@ -403,7 +414,8 @@ def _build_analysis_fn(plan: _Plan, mesh: Mesh | None):
 
                 if plan.has_det:
                     incr = jnp.einsum("vbk,bk->vb", pert_g, res.transmd,
-                                      preferred_element_type=dtype)
+                                      preferred_element_type=dtype,
+                                      precision=HIGHEST)
                     det_g = mean_det_l[np.asarray(vidx)] + incr * beta[None]
                     for j, v in enumerate(vidx):
                         det_parts[int(v)] = det_g[j]
@@ -542,6 +554,11 @@ def analyze(
     K, nv, nz, ny, nx = gues.shape
     dtype = gues.dtype
     B = ny * nx
+    if mesh is not None:
+        # start from the forecast layout on the mesh: an unplaced input
+        # would otherwise be split into mean/perturbations on one device
+        from scale_letkf_tpu.parallel.mesh import stacked_state_sharding
+        gues = jax.device_put(gues, stacked_state_sharding(mesh))
 
     pert_zkvb, mean_zvb, mean, logp_mean = _prep_jit(bool(donate_gues))(
         gues)

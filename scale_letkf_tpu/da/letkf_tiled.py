@@ -1,10 +1,10 @@
-"""Host-streamed tiled LETKF analysis for domains exceeding one chip's HBM.
+"""Host-streamed tiled LETKF analysis for domains exceeding device memory.
 
 The 18-km reference domain at MEMBER=50 (480x360x36, PARAM_PRC of
 config/2015summer_18km/config.nml.scale) is a 13.7-GB float32 state — the
 reference spreads it over 48 MPI ranks x 50 members
-(common_mpi_scale.f90:367-512); a single TPU chip cannot hold the state
-plus analysis work buffers. The LETKF update is embarrassingly parallel
+(common_mpi_scale.f90:367-512); a device too small for the state plus
+analysis work buffers streams it. The LETKF update is embarrassingly parallel
 across gridpoints once the (small) observation-space arrays are device
 resident, so this executor streams horizontal row-tiles of the ensemble
 through the chip:

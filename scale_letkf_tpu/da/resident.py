@@ -1,12 +1,11 @@
-"""Device-resident full-size DA cycle: the ensemble lives in HBM.
+"""Device-resident full-size DA cycle: the ensemble lives in device memory.
 
-Round-4 measurements showed the member-streamed executor (da/bigcycle.py)
-spends most of its wall-clock moving state across the host↔device link
-(150 s of 317 s for the radar analysis; the 18-km stream is
-transfer-bound). The reference never pays this cost — its state lives in
-the 48x50 ranks' memory (common_mpi_scale.f90:367-512). This executor is
-the single-chip equivalent: the WHOLE K-member ensemble stays resident in
-HBM, compressed as
+The member-streamed executor (da/bigcycle.py) moves the whole state
+across the host↔device link every cycle. The reference never pays this
+cost — its state lives in the 48x50 ranks' memory
+(common_mpi_scale.f90:367-512). This executor is the single-card
+equivalent: the WHOLE K-member ensemble stays resident in device memory,
+compressed as
 
     mean  : (NV3D, nz, ny, nx) float32   — ensemble mean, analysis vars
     dev   : (K, NV3D, nz, ny, nx) bfloat16 — member deviations from a
@@ -15,10 +14,10 @@ HBM, compressed as
 which fits both flagship configs (radar 192x192x48 K=50: 2.0 GB;
 18-km 480x360x36 K=50: 6.9 GB — vs 13.7 GB uncompressed f32). The
 mean/deviation split preserves increment-relative precision (storing
-whole members in bf16 quantizes T≈280 K at ~1 K — the round-4 lesson,
-da/letkf_tiled.py); deviations carry bf16's 0.4% relative error of the
-DEVIATION magnitude, which is the same order as the bf16 perturbation
-transport the streamed executor already uses.
+whole members in bf16 quantizes T≈280 K at ~1 K, da/letkf_tiled.py);
+deviations carry bf16's 0.4% relative error of the DEVIATION magnitude,
+which is the same order as the bf16 perturbation transport the streamed
+executor already uses.
 
 Phases (all device-side; zero steady-state host↔device traffic):
 
@@ -55,10 +54,12 @@ from scale_letkf_tpu.da.bigcycle import (
     _batch_of, _slot_parts, _log, bdy_batch)
 
 
-def _donate(platform_ok=("tpu",)):
-    """Donation is a no-op (with a warning) on CPU — enable on TPU only."""
+def _donate():
+    """Whether the in-place updates donate their input buffers. The CPU
+    backend ignores donation (with a warning); every other backend reuses
+    the donated buffer, so the update is not a full copy."""
     import jax
-    return jax.default_backend() in platform_ok
+    return jax.default_backend() != "cpu"
 
 
 class ResidentEnsemble:
@@ -127,9 +128,9 @@ class ResidentCycle:
         self.member_batch = member_batch
         self.tile_rows = tile_rows
         self.verbose = verbose
-        # upper bound on integration steps per device call: one XLA
-        # execution spanning the whole 720-step window (~6 min on-device)
-        # crashed the TPU worker (runtime watchdog)
+        # upper bound on integration steps per device call: the window is
+        # a chain of bounded executions, so progress stays observable and
+        # no single device call runs for minutes
         self.max_steps_per_call = max_steps_per_call
         self._jit_cache = {}
         # per-obs departures from the latest monitored cycle
@@ -148,9 +149,8 @@ class ResidentCycle:
         """Per-batch forecast pieces. The window is integrated as a CHAIN
         of bounded device calls (≤ max_steps_per_call steps each, state
         staying device-resident between calls) instead of one monolithic
-        program: a single XLA execution covering the full 720-step 18-km
-        window (~6 min on-device) crashed the TPU worker (runtime
-        watchdog); chunked calls also make progress observable."""
+        program, which keeps each execution short and progress
+        observable."""
         import jax
         import jax.numpy as jnp
         from scale_letkf_tpu.state import (

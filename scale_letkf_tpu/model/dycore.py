@@ -1,6 +1,6 @@
 """Compressible nonhydrostatic finite-volume dynamical core (JAX).
 
-TPU-native regional model providing the capability the reference outsources
+Regional model in JAX providing the capability the reference outsources
 to the external SCALE-RM library (reference: scale/ensmodel/scale-rm_ens.f90
 runs `scalerm` per member; the state contract it must satisfy is the restart
 variable set DENS/MOMX/MOMY/MOMZ/RHOT/QV..QG of common_scale.f90:36-51).
@@ -59,13 +59,6 @@ class DycoreConfig:
     lateral: str = "periodic"  # 'periodic' (ideal) | 'open' (limited-area:
                                # edge-clamped stencils, signals exit; use
                                # with Davies boundary forcing)
-    advection: str = "xla"     # tendency backend: 'xla' (fused rolls —
-                               # measured fastest on v5e) | 'pallas'
-                               # (ops/pallas_stencil.py fused per-tracer
-                               # UD3 kernel) | 'pallas_fused'
-                               # (ops/pallas_tendency.py one-pass fused
-                               # WHOLE-tendency kernel); both Pallas
-                               # backends: periodic + uniform dz only
     halo: str = "gspmd"        # multi-chip halo backend: 'gspmd' (sharded
                                # rolls auto-lower to collective-permutes) |
                                # 'explicit' (parallel/halo.py shard_map
@@ -253,15 +246,6 @@ def tendencies(s: DycoreState, cfg: DycoreConfig,
                vg: VGrid | None = None) -> DycoreState:
     """Flux-form tendencies. rho_ref/p_ref: (nz, 1, 1) reference column.
     vg: stretched vertical spacings (None ⇒ uniform cfg.dz)."""
-    if getattr(cfg, "advection", "xla") == "pallas_fused":
-        if vg is not None or _LATERAL[0] != "periodic":
-            raise ValueError(
-                "advection='pallas_fused' supports periodic lateral "
-                "boundaries and uniform vertical spacing only "
-                "(ops/pallas_tendency.py)")
-        from scale_letkf_tpu.ops.pallas_tendency import tendencies_fused
-        return tendencies_fused(s, cfg, rho_ref, p_ref)
-
     dx, dy, dz = cfg.dx, cfg.dy, cfg.dz
     dzc = dz if vg is None else vg.dzc      # cell thickness (centers)
     dzf = dz if vg is None else vg.dzf      # center spacing (interior faces)
@@ -287,21 +271,8 @@ def tendencies(s: DycoreState, cfg: DycoreConfig,
     drho = -div_center(fx, fy, s.rhow)
 
     # --- scalar advection (ρθ and tracers): flux = mass flux × face value
-    use_pallas = getattr(cfg, "advection", "xla") == "pallas"
-    if use_pallas and (vg is not None or _LATERAL[0] != "periodic"):
-        raise ValueError(
-            "advection='pallas' supports periodic lateral boundaries and "
-            "uniform vertical spacing only (ops/pallas_stencil.py)")
-
     def scalar_tend(fcen):
         phi = fcen / s.rho           # mixing-ratio form for consistency
-        if use_pallas:
-            from scale_letkf_tpu.ops.pallas_stencil import (
-                adv_flux_divergence_pallas)
-            adv = adv_flux_divergence_pallas(
-                phi, fx, fy, s.rhow, cfg.dx, cfg.dy, cfg.dz,
-                interpret=jax.devices()[0].platform != "tpu")
-            return adv + hyperdiff4(fcen, cfg.kdiff4)
         fl_x = fx * ud3_face_x(phi, fx)
         fl_y = fy * ud3_face_y(phi, fy)
         fl_z_int = fw_int * ud3_face_z(phi, fw_int)

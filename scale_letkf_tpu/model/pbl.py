@@ -1,6 +1,6 @@
 """Boundary-layer turbulence: local K closure + implicit vertical diffusion.
 
-TPU-native stand-in for the SCALE-RM boundary-layer physics (the reference
+Vectorized stand-in for the SCALE-RM boundary-layer physics (the reference
 runs it inside the external SCALE library; SURVEY §2.6 lists the
 boundary-layer scheme as a required capability of the rebuild). A
 Richardson-number-dependent first-order local closure (Louis-type, the

@@ -1,6 +1,6 @@
 """Radiation: gray two-stream longwave + Beer-law shortwave.
 
-TPU-native stand-in for the SCALE-RM radiation physics (mstrnX in the
+Vectorized stand-in for the SCALE-RM radiation physics (mstrnX in the
 external SCALE library; SURVEY §2.6 lists radiation as a required
 capability of the rebuild — the reference's 18-km case steps it every
 600 s, BASELINE.md PARAM_TIME). A broadband gray-gas longwave scheme with

@@ -5,7 +5,7 @@ the external model (SURVEY §2.6: the SCALE-RM physics suite is outside the
 reference repo but is a required capability; the DA side consumes its
 screen-level outputs u10m/v10m/t2m/q2m through the history state,
 reference: scale/common/common_scale.f90:60-98 nv2dd fields). This module
-is the TPU-native surface layer: fully vectorized over (ny, nx), no
+is the vectorized surface layer: fully vectorized over (ny, nx), no
 iterative Monin-Obukhov solve (the Louis analytic stability functions are
 the standard non-iterative formulation, giving branch-free XLA-friendly
 code).

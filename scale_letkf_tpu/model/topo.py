@@ -4,7 +4,7 @@ The reference delegates topo/landuse preparation to the external SCALE
 library (scale/ensmodel/scale-rm_pp_ens.f90 calls scalerm_prep, which runs
 SCALE's CNVTOPO on GTOPO30/DEM50M rasters); the LETKF executables then read
 the prepared per-rank topo files (read_topo, common_scale.f90:785).
-TPU-natively the same step is a single vectorized remap + slope-limited
+Here the same step is a single vectorized remap + slope-limited
 smoothing producing the global topo array consumed by Grid.calc_z.
 
 Pipeline (cnvtopo equivalent):

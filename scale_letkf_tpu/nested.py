@@ -3,7 +3,7 @@
 Reference: multi-domain online nesting (NUM_DOMAIN/PRC_DOMAINS,
 common_nml.f90:56-58; the nesting communicator split,
 common_mpi_scale.f90:696-706; the BDA demos run d1→d4 telescoping nests).
-TPU-natively both domains are jitted programs in one process: each cycle
+Here both domains are jitted programs in one process: each cycle
 the parent ensemble's start/end states are interpolated to the child grid
 (model/nesting.py) and become the child's per-member Davies boundary
 bracket — boundary data is a TRACED argument of the child's forecast, so

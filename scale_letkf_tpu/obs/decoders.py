@@ -1,6 +1,6 @@
 """Offline observation decoders (GFS-era tools re-hosted).
 
-TPU-native re-implementations of the reference's offline obs converters
+Vectorized re-implementations of the reference's offline obs converters
 (reference: scale/obs/readdiag_conv.f90 — GSI diag_conv → LETKF obs2;
 scale/obs/dec_prcp.f90 — gridded TMPA precipitation → rain obs). These are
 host-side preprocessing tools (pure NumPy, no device work) feeding the

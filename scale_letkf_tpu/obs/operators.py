@@ -1,12 +1,12 @@
 """Vectorized observation operators H(x).
 
-TPU-native re-design of the per-observation forward operators (reference:
+Batched re-design of the per-observation forward operators (reference:
 scale/common/common_obs_scale.f90 — Trans_XtoY :264, Trans_XtoY_radar :342,
 calc_ref_vr :626, prsadj :600, phys2ijk :999, phys2ijkz :1116,
 itpl_2d/3d :1295-1366). Instead of one scalar call per obs, every function
 here takes dense arrays over the whole obs batch and the full 3-D model
 fields; elem-dependent behavior is computed-and-selected (XLA turns that
-into vectorized selects, keeping the MXU/VPU busy and avoiding per-obs
+into vectorized selects, avoiding per-obs
 control flow).
 
 Index convention: 0-based fractional gridpoint coordinates. ri ∈ [0, nx-1]
@@ -38,9 +38,8 @@ FVIRT_PRSADJ = 0.608  # virtual-T factor used by prsadj (common_obs_scale.f90:61
 
 # All interpolators gather through a FLATTENED trailing (ny*nx) axis with
 # a single fused index (j*nx+i) instead of multi-array advanced indexing:
-# the multi-dimensional gather form triggered a TPU kernel fault when
-# fused into larger H(x) graphs at full 18-km size (480x360x36), and the
-# flat form lowers to the simple 1-D gather the hardware handles well.
+# the flat form lowers to one simple 1-D gather per stencil point, also
+# when fused into the full-size H(x) graphs (480x360x36).
 
 def itpl_2d(field: jax.Array, ri: jax.Array, rj: jax.Array) -> jax.Array:
     """Bilinear interpolation of field (ny, nx) at fractional points.

@@ -4,20 +4,19 @@ Alternative backend to jnp.linalg.eigh for the LETKF's batched K×K
 eigendecompositions (reference: the per-point EISPACK `rs` call,
 common/common_mtx.f90:41).
 
-Role after hardware measurement (v5e, BENCH r02/r03): the row/column VPU
-form below is the FASTEST backend at small ensembles (K ≤ 16; 3.6M pts/s
-at K=8 vs 0.1M for jnp.linalg.eigh) and is what eigh_impl='auto' picks
-there. At larger K its matmul form loses to the Newton–Schulz
-inverse-sqrt path (ops/invsqrt.py), which sidesteps the
+Role: the row/column elementwise form below is what eigh_impl='auto'
+picks at small ensembles (K ≤ 16); its place on the GPU against the
+vendor batched eigh is measured by chip_smoke.py phase b (PERF.md). At
+larger K 'auto' uses the Newton–Schulz inverse-sqrt path (ops/invsqrt.py), which sidesteps the
 eigendecomposition entirely — the LETKF transform needs only C^{-1/2} and
-C^{-1}; 'auto' dispatches to 'ns' for K > 16. The matmul Jacobi form is
+C^{-1}. The matmul Jacobi form is
 kept for callers that need actual eigenpairs at K > 64 without LAPACK.
 
 Algorithm: round-robin parallel ordering — each round pairs up all K
 indices into K/2 disjoint (p, q) pairs; the K-1 rounds of a sweep touch
 every pair once. Per round, the K/2 Givens rotations commute, so they form
 one orthogonal matrix J and the update is A ← JᵀAJ, V ← VJ — two batched
-matmuls (or, at small K, elementwise row/column combinations on the VPU).
+matmuls (or, at small K, elementwise row/column combinations).
 Convergence: off-diagonal norm decays quadratically; 6-10 sweeps reach
 float32 machine precision.
 """
@@ -85,10 +84,9 @@ def _angles(a, p_idx, q_idx):
 def _eigh_jacobi_rowcol(a: jax.Array, sweeps: int = 8):
     """Row/column-update formulation: each round applies its K/2 disjoint
     Givens rotations as elementwise row and column combinations instead of
-    K×K matmuls. O(K²) work per round instead of O(K³), and the work is
-    pure VPU elementwise math — at small K (the common ensemble sizes) the
-    matmul form wastes >99% of the MXU's 128×128 tile on 8×8 operands, so
-    this path is several times faster on TPU (measured on hardware)."""
+    K×K matmuls. O(K²) work per round instead of O(K³), all of it
+    elementwise — at small K (the common ensemble sizes) a matrix unit
+    would be almost idle on 8×8 operands."""
     K = a.shape[-1]
     sched = _round_robin_schedule(K)           # (K-1, K/2, 2)
     batch = a.shape[:-2]
@@ -122,9 +120,8 @@ def _eigh_jacobi_rowcol(a: jax.Array, sweeps: int = 8):
     return w_sorted, v_sorted
 
 
-# Below this size the row/col form wins (elementwise, no MXU involvement);
-# above it the matmul form's MXU tiles are well-filled and its fewer, larger
-# kernels win.
+# Below this size the row/col form (elementwise) is used; above it the
+# matmul form's fewer, larger products.
 _ROWCOL_MAX_K = 64
 
 
@@ -135,7 +132,7 @@ def eigh_jacobi(a: jax.Array, sweeps: int = 8):
     Returns (eigenvalues ascending (..., K), eigenvectors (..., K, K)) with
     A = V diag(w) Vᵀ (columns are eigenvectors), matching jnp.linalg.eigh.
     Dispatches between the row/col-update form (small K) and the batched
-    matmul form (large K, MXU-bound).
+    matmul form (large K).
     """
     K = a.shape[-1]
     if K <= _ROWCOL_MAX_K:
@@ -145,9 +142,9 @@ def eigh_jacobi(a: jax.Array, sweeps: int = 8):
     batch = a.shape[:-2]
     v0 = jnp.broadcast_to(jnp.eye(K, dtype=a.dtype), batch + (K, K))
 
-    # The rotation products MUST run at full float32 precision: the TPU MXU's
-    # default bf16 passes put a ~1e-2 floor on the eigenvector accuracy
-    # (measured on hardware), independent of sweep count.
+    # The rotation products MUST run at full float32 precision: reduced
+    # precision products (bf16, TF32) put a floor on the eigenvector
+    # accuracy that no sweep count removes.
     mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
     def one_round(carry, pairs):

@@ -1,30 +1,29 @@
 """Batched SPD inverse square root via coupled Newton–Schulz iteration.
 
-TPU-native replacement for the eigendecomposition inside the LETKF
+Matmul-only replacement for the eigendecomposition inside the LETKF
 transform. The reference diagonalizes the K×K ensemble-space Gram matrix
 per gridpoint (EISPACK `rs`, common/common_mtx.f90:41) and then forms
   Pa   = V Λ⁻¹ Vᵀ        = C⁻¹
   W    = V √((K-1)Λ⁻¹) Vᵀ = √(K-1) · C^{-1/2}
 (common/common_letkf.f90:151-206) — i.e. the algorithm never needs the
 eigenpairs themselves, only the inverse and the inverse square root of an
-SPD matrix. On TPU a batched eigendecomposition is the worst-shaped op in
-the whole analysis (sequential QR/Jacobi sweeps, tiny non-MXU kernels),
-while the inverse square root has a classic matmul-only algorithm: the
-coupled Newton–Schulz iteration (Higham, "Functions of Matrices", §6.3;
-stable, unlike uncoupled Newton):
+SPD matrix. A batched eigendecomposition is a sequence of small dependent
+sweeps, while the inverse square root has a classic matmul-only
+algorithm: the coupled Newton–Schulz iteration (Higham, "Functions of
+Matrices", §6.3; stable, unlike uncoupled Newton):
 
   A = C / c                      (c ≥ λ_max : Gershgorin row-sum bound)
   Y₀ = A, Z₀ = I
   T_k = (3I − Z_k Y_k)/2 ;  Y_{k+1} = Y_k T_k ;  Z_{k+1} = T_k Z_k
   Y_k → A^{1/2},  Z_k → A^{-1/2}
 
-Every step is three batched K×K matmuls — pure MXU work. Convergence: with
-eigenvalues of A in (0, 1], the scalar error map is p ← p(3−p)²/4 (p = z·y
-eigenvalue product), which grows small p by ×2.25 per step and then
-converges quadratically near 1, so the sweep count is
-~log(cond)/log(2.25) + 5. The LETKF Gram matrix C = HδXᵀR⁻¹HδX + (K-1)/ρ·I
-has cond ≈ 1 + ρ/(K-1)·λ_max(S) ~ Σ_l ρ_loc(spread/err)² — a few hundred
-even for dense radar volumes — so the default 22 iterations reach float32
+Every step is three batched K×K matmuls. Convergence: with eigenvalues of
+A in (0, 1], the scalar error map is p ← p(3−p)²/4 (p = z·y eigenvalue
+product), which grows small p by ×2.25 per step and then converges
+quadratically near 1, so the sweep count is ~log(cond)/log(2.25) + 5. The
+LETKF Gram matrix C = HδXᵀR⁻¹HδX + (K-1)/ρ·I has
+cond ≈ 1 + ρ/(K-1)·λ_max(S) ~ Σ_l ρ_loc(spread/err)² — a few hundred even
+for dense radar volumes — so the default 22 iterations reach float32
 accuracy with large margin (validated against jnp.linalg.eigh in
 tests/test_invsqrt.py).
 """
@@ -81,82 +80,58 @@ def invsqrt_newton_schulz(c_mat: jax.Array, iters: int = 22):
 
 
 # ---------------------------------------------------------------------------
-# Fused Pallas kernel: the whole NS iteration in VMEM
+# Fused kernel (Pallas through Triton): the whole iteration on chip
 # ---------------------------------------------------------------------------
 #
-# The XLA path above round-trips Y/Z/T through HBM every iteration and is
-# latency-bound on the tiny batched K×K matmuls (measured v5e, K=50,
-# B=4096: 27.6 ms/solve-batch ≈ 190 GB/s effective, <1% MFU). The fused
-# kernel keeps the iteration entirely in VMEM: HBM traffic drops to one
-# read + two writes TOTAL, and the MXU runs back-to-back passes.
+# The XLA path above launches three batched K×K products per iteration,
+# each reading Y/Z/T from device memory and writing its result back: at
+# K=50, B=4096 one batch of matrices is 41 MB, so 22 iterations move about
+# 8 GB. The fused kernel runs one matrix per program and keeps Y, Z and T
+# on chip for the whole iteration (a 64×64 f32 triple is 48 KB), so device
+# memory sees one read of the inputs and one write of each output.
 #
-# Numerics (measured on v5e, rank-deficient LETKF-shaped Grams):
-#   phase 1: bf16x3 split-operand products (3 MXU passes ≈ f32 to ~2e-5)
-#            on a REGULARIZED matrix whose spectrum is floored at
-#            EIG_FLOOR of λ_max — pure-bf16 phases NaN when normalized
-#            eigenvalues reach the bf16x3 noise (~1.5e-5); the floor makes
-#            the phase unconditionally convergent. The floor uses the
-#            EXACT lower bound λ_min(C) ≥ (K-1)/ρ (the inflation shift:
+# Numerics:
+#   phase 1: TF32x3 products (three TF32 tensor-core passes, ≈ f32) on a
+#            REGULARIZED matrix whose spectrum is floored at EIG_FLOOR of
+#            λ_max, which makes the phase unconditionally convergent at
+#            that precision. The floor uses the EXACT lower bound
+#            λ_min(C) ≥ (K-1)/ρ (the inflation shift:
 #            C = HδXᵀR⁻¹HδX·rloc + (K-1)/ρ·I with the first term PSD), so
 #            well-conditioned matrices (cond ≤ 1/EIG_FLOOR) are untouched.
 #   phase 2: re-anchor the coupled invariant Y = A·Z (exact by
-#            construction) on the TRUE matrix and polish with HIGHEST
-#            (6-pass f32) iterations.
-# Accuracy vs f64 eigh: ~2e-5 (cond 1e2) → ~1e-4 (1e3) → ~9e-4 (1e4);
-# graceful, NaN-free beyond. Production LETKF Grams measure cond ≲ 1e3.
-# Throughput at K=50, B=4096: ~290k solves/s vs 102k (XLA HIGHEST/22) —
-# 2.8×; the pure-bf16 variant reaches 656k but floors at 1.3e-2 error
-# (the coupled iteration has neutral error modes along its invariant
-# manifold, so polish cannot remove phase-1 error below its floor).
+#            construction) on the TRUE matrix and polish with IEEE f32
+#            iterations.
 
 EIG_FLOOR = 1e-4       # phase-1 spectrum floor (fraction of λ_max bound)
 
 
-def _bdot(x, w, prec):
-    return jax.lax.dot_general(
-        x, w, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32, precision=prec)
-
-
-def _bdot3(x, w):
-    """bf16x3 batched matmul: split-operand 3-pass ≈ lax.Precision.HIGH,
-    which Mosaic does not expose in-kernel."""
-    DEF = jax.lax.Precision.DEFAULT
-    xh = x.astype(jnp.bfloat16).astype(jnp.float32)
-    xl = (x - xh).astype(jnp.bfloat16)
-    wh = w.astype(jnp.bfloat16).astype(jnp.float32)
-    wl = (w - wh).astype(jnp.bfloat16)
-    xhb = xh.astype(jnp.bfloat16)
-    whb = wh.astype(jnp.bfloat16)
-    return (_bdot(xhb, whb, DEF) + _bdot(xhb, wl, DEF)
-            + _bdot(xl, whb, DEF))
-
-
-def _ns_fused_kernel(it_lo, it_hi, a_ref, areg_ref, isq_ref, inv_ref):
-    HI = jax.lax.Precision.HIGHEST
-    a = a_ref[:]
-    areg = areg_ref[:]
+def _ns_fused_kernel(a_ref, areg_ref, isq_ref, inv_ref, *, it_lo, it_hi,
+                     bulk, polish):
+    a = a_ref[...]
+    areg = areg_ref[...]
     kp = a.shape[-1]
-    eye = jnp.broadcast_to(jnp.eye(kp, dtype=a.dtype), a.shape)
+    ii = jax.lax.broadcasted_iota(jnp.int32, (kp, kp), 0)
+    jj = jax.lax.broadcasted_iota(jnp.int32, (kp, kp), 1)
+    eye = (ii == jj).astype(a.dtype)
 
-    def body3(i, carry):
-        y, z = carry
-        t = 1.5 * eye - 0.5 * _bdot3(z, y)
-        return _bdot3(y, t), _bdot3(t, z)
+    def dot(x, y, prec):
+        return jax.lax.dot(x, y, precision=prec,
+                           preferred_element_type=jnp.float32)
 
-    _, z = jax.lax.fori_loop(0, it_lo, body3, (areg, eye))
+    def sweep(prec):
+        def body(i, carry):
+            y, z = carry
+            t = 1.5 * eye - 0.5 * dot(z, y, prec)
+            return dot(y, t, prec), dot(t, z, prec)
+        return body
+
+    _, z = jax.lax.fori_loop(0, it_lo, sweep(bulk), (areg, eye))
     # re-anchor Y = A·Z on the true matrix, then quadratic polish
-    y = _bdot(a, z, HI)
-
-    def bodyh(i, carry):
-        y, z = carry
-        t = 1.5 * eye - 0.5 * _bdot(z, y, HI)
-        return _bdot(y, t, HI), _bdot(t, z, HI)
-
-    _, z = jax.lax.fori_loop(0, it_hi, bodyh, (y, z))
-    z = 0.5 * (z + jnp.swapaxes(z, -1, -2))
-    isq_ref[:] = z
-    inv_ref[:] = _bdot(z, z, HI)
+    y = dot(a, z, polish)
+    _, z = jax.lax.fori_loop(0, it_hi, sweep(polish), (y, z))
+    z = 0.5 * (z + z.T)
+    isq_ref[...] = z
+    inv_ref[...] = dot(z, z, polish)
 
 
 def _power_bound(c_mat, iters: int = 8):
@@ -180,35 +155,57 @@ def _power_bound(c_mat, iters: int = 8):
     return jnp.maximum(1.05 * power, gersh / 2.9)
 
 
-def invsqrt_ns_pallas(
+# Widest padded matrix the kernel serves: Triton stages each dot's operands
+# through shared memory, and at width 128 the TF32x3 products ask for
+# 320 KB, beyond the 227 KB an H100 block may use (measured on the card).
+FUSED_MAX_WIDTH = 64
+# Warps per program: at width 64 four warps beat eight (4.994 against
+# 5.594 ms for the kernel alone at B=4096 K=50 on an H100 80GB HBM3,
+# 700 W); two spill (142.7 ms). To measure again, change this value and
+# rerun phase b of chip_smoke.py.
+NUM_WARPS = 4
+
+
+def fused_width(K: int) -> int:
+    """Padded matrix width of the fused kernel: the next power of two
+    (Triton's block rule), at least 16 (its smallest dot operand)."""
+    return max(16, 1 << (int(K) - 1).bit_length())
+
+
+def invsqrt_ns_fused(
     c_mat: jax.Array,         # (..., K, K) SPD (float32)
     smin: jax.Array,          # (...,) EXACT lower bound on λ_min (the
                               # LETKF inflation shift (K-1)/ρ; pass 0 for
                               # "unknown" — phase 1 then always floors)
     it_lo: int = 18,
     it_hi: int = 2,
-    block: int = 32,
+    interpret: bool = False,
 ):
-    """Fused-VMEM batched inverse square root + inverse (TPU Pallas).
+    """Fused batched inverse square root + inverse (Pallas, Triton route).
 
-    Returns (inv_sqrt, inv) like invsqrt_newton_schulz. K is padded to a
-    multiple of 64 block-diagonally with identity (exact). Leading batch
-    dims are flattened and padded to the block size."""
-    from functools import partial as _partial
+    Returns (inv_sqrt, inv) like invsqrt_newton_schulz. K is padded to
+    fused_width(K) block-diagonally with identity (exact). Leading batch
+    dims are flattened; each program solves one matrix.
+
+    interpret=True runs the kernel body in the Pallas interpreter (CPU
+    tests). The interpreter's CPU dot offers no TF32x3 product, so phase 1
+    then uses the IEEE f32 product that TF32x3 approximates."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as pltriton
 
     *lead, K, _ = c_mat.shape
     dtype = c_mat.dtype
+    if dtype != jnp.float32:
+        raise ValueError(f"invsqrt_ns_fused is float32-only, got {dtype}")
     B = int(np.prod(lead)) if lead else 1
     c_flat = c_mat.reshape(B, K, K)
-    smin_flat = jnp.broadcast_to(jnp.asarray(smin, dtype), tuple(lead)
-                                 ).reshape(B) if lead else \
-        jnp.broadcast_to(jnp.asarray(smin, dtype), (1,))
+    smin_flat = jnp.broadcast_to(jnp.asarray(smin, dtype),
+                                 tuple(lead)).reshape(B)
 
-    kp = -(-K // 64) * 64
-    bb = min(block, 8 if kp > 64 else 32)
-    Bp = -(-B // bb) * bb
+    kp = fused_width(K)
+    if kp > FUSED_MAX_WIDTH:
+        raise ValueError(f"invsqrt_ns_fused serves K <= {FUSED_MAX_WIDTH}, "
+                         f"got K={K}")
 
     c = jnp.maximum(_power_bound(c_flat), jnp.finfo(dtype).tiny)
     a = c_flat / c[..., None, None]
@@ -220,23 +217,25 @@ def invsqrt_ns_pallas(
                           ((K, 0), (K, 0)))[None]
         a = jnp.pad(a, ((0, 0), (0, kp - K), (0, kp - K))) + pad_eye
         areg = jnp.pad(areg, ((0, 0), (0, kp - K), (0, kp - K))) + pad_eye
-    if Bp > B:
-        # batch padding: identity matrices (NS fixed point, harmless)
-        pad_i = jnp.broadcast_to(jnp.eye(kp, dtype=dtype),
-                                 (Bp - B, kp, kp))
-        a = jnp.concatenate([a, pad_i], axis=0)
-        areg = jnp.concatenate([areg, pad_i], axis=0)
 
-    spec = pl.BlockSpec((bb, kp, kp), lambda i: (i, 0, 0),
-                        memory_space=pltpu.VMEM)
+    presets = jax.lax.DotAlgorithmPreset
+    polish = presets.F32_F32_F32
+    bulk = polish if interpret else presets.TF32_TF32_F32_X3
+    spec = pl.BlockSpec((None, kp, kp), lambda i: (i, 0, 0))
     isq, inv = pl.pallas_call(
-        _partial(_ns_fused_kernel, it_lo, it_hi),
-        grid=(Bp // bb,),
+        partial(_ns_fused_kernel, it_lo=it_lo, it_hi=it_hi, bulk=bulk,
+                polish=polish),
+        grid=(B,),
         in_specs=[spec, spec],
         out_specs=(spec, spec),
-        out_shape=(jax.ShapeDtypeStruct((Bp, kp, kp), dtype),) * 2,
+        out_shape=(jax.ShapeDtypeStruct((B, kp, kp), dtype),) * 2,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
+        interpret=interpret,
+        name="ns_invsqrt_fused",
     )(a, areg)
-    isq = isq[:B, :K, :K] * jax.lax.rsqrt(c)[..., None, None]
-    inv = inv[:B, :K, :K] / c[..., None, None]
+    isq = isq[:, :K, :K] * jax.lax.rsqrt(c)[..., None, None]
+    inv = inv[:, :K, :K] / c[..., None, None]
     out_shape = tuple(lead) + (K, K)
     return isq.reshape(out_shape), inv.reshape(out_shape)

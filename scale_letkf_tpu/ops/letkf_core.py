@@ -1,11 +1,11 @@
 """Batched LETKF ensemble-transform core (Hunt et al. 2007).
 
-TPU-native re-design of the per-point transform the reference computes one
+Batched re-design of the per-point transform the reference computes one
 gridpoint at a time (reference: common/common_letkf.f90:52-257, using
 dgemm + EISPACK `rs` via common/common_mtx.f90:41). Here the whole batch of
-gridpoints is processed at once: every step is a batched einsum (MXU) or a
-batched symmetric eigendecomposition (jnp.linalg.eigh), so XLA can tile the
-K×K ensemble-space algebra onto the systolic array and fuse the elementwise
+gridpoints is processed at once: every step is a batched einsum or a
+batched symmetric inverse square root, so XLA can hand the K×K
+ensemble-space algebra to batched matrix kernels and fuse the elementwise
 pieces.
 
 Padding convention (replaces the reference's variable `nobsl`): each batch
@@ -32,6 +32,42 @@ import jax.numpy as jnp
 SIGMA_B_INFL = 0.04
 
 
+# Backends of the batched K×K solve:
+#   'lax'      jnp.linalg.eigh (the vendor solver on the GPU)
+#   'jacobi'   parallel cyclic Jacobi (ops/eigh_jacobi.py), elementwise at
+#              small K
+#   'ns'       matmul-only coupled Newton–Schulz (ops/invsqrt.py, XLA)
+#   'ns_fused' the same iteration as one fused Pallas kernel through
+#              Triton (ops/invsqrt.py; GPU, float32)
+#   'auto'     resolve_eigh_impl()
+EIGH_IMPLS = ("auto", "lax", "jacobi", "ns", "ns_fused")
+
+
+def resolve_eigh_impl(eigh_impl: str, K: int, dtype,
+                      sharded: bool = False) -> str:
+    """The backend 'auto' stands for at ensemble size K and compute dtype:
+    Jacobi for small even K; on the GPU at float32 the fused kernel for
+    every K it serves; else matmul-only Newton–Schulz.
+
+    sharded=True: the batch is split over a device mesh inside a GSPMD
+    program. The fused kernel is a custom call without a partitioning
+    rule, so the partitioner would gather the whole batch onto every
+    device; 'auto' then keeps to 'ns', whose batched products partition."""
+    from scale_letkf_tpu.ops.invsqrt import FUSED_MAX_WIDTH, fused_width
+    if eigh_impl not in EIGH_IMPLS:
+        raise ValueError(f"unknown eigh_impl {eigh_impl!r} "
+                         f"(valid: {', '.join(EIGH_IMPLS)})")
+    if eigh_impl != "auto":
+        return eigh_impl
+    if K <= 16 and K % 2 == 0:
+        return "jacobi"
+    if (not sharded and fused_width(K) <= FUSED_MAX_WIDTH
+            and jnp.dtype(dtype) == jnp.float32
+            and jax.default_backend() == "gpu"):
+        return "ns_fused"
+    return "ns"
+
+
 class LetkfResult(NamedTuple):
     trans: jax.Array       # (..., K, K) perturbation transform W
     transm: jax.Array      # (..., K)    mean-update weight w̄
@@ -51,22 +87,12 @@ def letkf_core(
     infl_update: bool = False,
     depd: jax.Array | None = None,  # (..., L) deterministic-member departures
     min_infl: float = 0.0,
-    eigh_impl: str = "auto",  # 'ns' (matmul-only Newton–Schulz inverse
-                              # square root, ops/invsqrt.py — XLA batched
-                              # path: no eigendecomposition at all) |
-                              # 'ns_pallas' (fused-VMEM NS Pallas kernel,
-                              # 2.5×/4.0× 'ns' at K=50/100 on v5e; TPU
-                              # only, K ≤ 128 — VMEM bound) |
-                              # 'lax' (jnp.linalg.eigh) | 'jacobi'
-                              # (VPU row/col parallel Jacobi,
-                              # ops/eigh_jacobi.py — fastest at small K) |
-                              # 'auto' (jacobi for K ≤ 16; ns_pallas on
-                              # TPU for K ≤ 128; else ns)
+    eigh_impl: str = "auto",  # see EIGH_IMPLS
 ) -> LetkfResult:
     """Compute the LETKF transform for a batch of local analysis problems.
 
     All leading dimensions are batch dimensions. Compute dtype follows the
-    inputs (float32 on TPU for speed; float64 under x64 for parity tests).
+    inputs (float32 on the accelerator; float64 under x64 for parity tests).
     """
     K = hdxb.shape[-1]
     dtype = hdxb.dtype
@@ -87,26 +113,18 @@ def letkf_core(
     shift = km1 / parm_infl[..., None]
     gram = gram + shift[..., None] * jnp.eye(K, dtype=dtype)
 
-    if eigh_impl == "auto":
-        if K <= 16 and K % 2 == 0:
-            eigh_impl = "jacobi"
-        elif K <= 128 and dtype == jnp.float32 \
-                and jax.default_backend() == "tpu":
-            eigh_impl = "ns_pallas"
-        else:
-            eigh_impl = "ns"
-
-    if eigh_impl == "ns_pallas":
-        # Fused-VMEM NS kernel (ops/invsqrt.py): the whole iteration in
-        # one Pallas program. The phase-1 eigenvalue floor uses the EXACT
+    eigh_impl = resolve_eigh_impl(eigh_impl, K, dtype)
+    if eigh_impl == "ns_fused":
+        # Fused Newton–Schulz kernel (ops/invsqrt.py): the whole iteration
+        # in one Pallas program. The phase-1 eigenvalue floor uses the EXACT
         # bound λ_min(gram) ≥ (K-1)/ρ — the inflation shift added above.
-        from scale_letkf_tpu.ops.invsqrt import invsqrt_ns_pallas
-        inv_sqrt, pao = invsqrt_ns_pallas(gram, shift[..., 0])
+        from scale_letkf_tpu.ops.invsqrt import invsqrt_ns_fused
+        inv_sqrt, pao = invsqrt_ns_fused(gram, shift[..., 0])
         trans = jnp.sqrt(km1) * inv_sqrt
     elif eigh_impl == "ns":
         # Matmul-only path: the transform needs only C^{-1} (= Pa) and
         # C^{-1/2} (= W/√(K-1)), never the eigenpairs — coupled
-        # Newton–Schulz computes both on the MXU (ops/invsqrt.py).
+        # Newton–Schulz computes both with batched matmuls (ops/invsqrt.py).
         from scale_letkf_tpu.ops.invsqrt import invsqrt_newton_schulz
         inv_sqrt, pao = invsqrt_newton_schulz(gram)
         trans = jnp.sqrt(km1) * inv_sqrt

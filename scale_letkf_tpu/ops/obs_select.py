@@ -1,6 +1,6 @@
 """Local observation selection: bucket grid + fixed-capacity candidate gather.
 
-TPU-native replacement for the reference's per-gridpoint incremental search
+Batched replacement for the reference's per-gridpoint incremental search
 (reference: letkf_obs.f90:660-855 bucket counting sort per combined obs type;
 letkf_tools.f90:1325-1759 obs_local rectangle search + QUICKSELECT top-k).
 
@@ -212,10 +212,9 @@ def local_weights(
     convention the reference uses)."""
     valid = cand_idx >= 0
     safe = jnp.maximum(cand_idx, 0)
-    # separate scalar gathers here are fine (xprof: these were never the
-    # hot fusions); do NOT pack them into a (·, 4) table gather — XLA
-    # canonicalizes the slice dim minor and the TPU layout pads 4 → 128
-    # lanes, a 32x HBM blowup that OOMs the full-size configs
+    # separate scalar gathers here; a packed (·, 4) table gather puts the
+    # narrow slice dim minor, which a tiled device layout may pad to the
+    # tile width (a large memory blowup at the full-size configs)
     ox = obs_x[safe]
     oy = obs_y[safe]
     ov = obs_vert[safe]
@@ -256,7 +255,7 @@ def limit_obs_topk(
 
     With obs_err given, the sort carries only (score, idx) — half the
     data movement of the 4-payload variant (the sort dominates dense-radar
-    selection: 99 ms/level at (9216, 5184) on v5e) — and rloc/rdiag are
+    selection) — and rloc/rdiag are
     recomputed exactly from the sliced score + a small (B, L) err gather:
       criterion 1: score = ndist2  → rloc = taper(score)
       criterion 2: score = -rloc   → rloc = -score
@@ -272,14 +271,13 @@ def limit_obs_topk(
     k = min(max_nobs, cand_idx.shape[-1])
     B = cand_idx.shape[0]
     # variadic sort carrying the payloads, then a contiguous slice: the
-    # equivalent top_k + take_along_axis pays ~25x the sort cost in TPU
-    # lane-wise gathers (xprof-measured); the sort moves the payload rows
-    # natively. Ascending by score (best first), bad slots pushed to the
+    # equivalent top_k + take_along_axis adds element-wise gathers; the
+    # sort moves the payload rows natively. Ascending by score (best first), bad slots pushed to the
     # end by +inf.
     # The 2-payload path only wins when the sort is wide enough to
     # dominate — at narrow candidate tables the extra (B, L) err gather
-    # is launch-bound and COSTS time (measured: the 48x48x16 fused cycle
-    # regressed 0.10 -> 0.24 s/cycle before this gate).
+    # is launch-bound and costs time (the 48x48x16 fused cycle is on that
+    # side of the gate).
     if obs_err is not None and cand_idx.shape[-1] >= 512:
         score_s, idx_s = jax.lax.sort(
             (score, cand_idx), dimension=-1, num_keys=1, is_stable=False)
@@ -324,9 +322,8 @@ def limit_obs_topk(
 
 def pack_obs_table(dep: jax.Array, ensval_pert: jax.Array) -> jax.Array:
     """Pack the (dep | hdxb) obs table into bf16 PAIRS bitcast as float32:
-    TPU gathers are element-count bound (~850M elem/s measured on v5e
-    regardless of layout), so halving the element count halves the
-    dominant per-level gather cost. hdxb at bf16 carries ~0.4% of the
+    halving the element count halves the bytes and the elements of the
+    dominant per-level gather. hdxb at bf16 carries ~0.4% of the
     H(x)-perturbation magnitude — the same transport precision the tiled
     executors already use for state perturbations (da/letkf_tiled.py).
 
@@ -377,10 +374,10 @@ def gather_obs_data(
     (harmless because their rloc is 0 — see letkf_core padding contract).
 
     dep rides along as an extra row of the hdxb table so the whole pull is
-    ONE gather — a separate scalar gather from the 1-D dep vector is ~25x
-    slower on TPU (xprof-measured). The member axis leads in the gather
+    ONE gather instead of a second, separate scalar gather from the 1-D dep
+    vector. The member axis leads in the gather
     ((1+K, B, L)) so the large L dim stays minor; gathering (B, L, 1+K)
-    directly would tile-pad the minor 1+K dim to 128 lanes."""
+    directly would put the narrow 1+K dim minor."""
     K = ensval_pert.shape[-1]
     if ensval_pert.shape[0] == 0:
         # zero-obs analysis (reference common_letkf.f90:89 zero-obs

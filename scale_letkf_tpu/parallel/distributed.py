@@ -3,7 +3,7 @@
 The reference's distribution layer is an explicit MPI communicator
 hierarchy with a member↔node mapping and rank-addressed staging
 (reference: scale/common/common_mpi_scale.f90:367-512 set_mem_node_proc;
-scale/run/misc/k_stg.py stage-in tables for 3636 nodes). The TPU-native
+scale/run/misc/k_stg.py stage-in tables for 3636 nodes). The array-native
 equivalent: bring up the JAX multi-process runtime so `jax.devices()`
 spans every host, build ONE (member, dy, dx) mesh over the global device
 set, and let GSPMD place the collectives — there are no per-communicator
@@ -34,7 +34,7 @@ def init_distributed(
     coordinator: "host:port" of process 0 (reference analogue: the MPI
     launcher's rank-0 rendezvous). local_device_count forces N virtual
     host-platform devices per process — the CPU test rig; leave None on
-    real TPU hosts where the local chips are discovered.
+    accelerator hosts, where the local cards are discovered.
     """
     import os
     if local_device_count is not None:

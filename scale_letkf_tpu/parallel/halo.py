@@ -1,6 +1,6 @@
 """Explicit halo-exchange stencils under shard_map.
 
-TPU-native equivalent of the reference's halo machinery (reference: SCALE
+Array-native equivalent of the reference's halo machinery (reference: SCALE
 COMM_vars8/COMM_wait used at common_scale.f90:1385-1397; halo width 2 per
 the IHALO/JHALO convention). Two multi-chip paths exist:
 

@@ -1,6 +1,6 @@
 """Device mesh and sharding layout for the (member × domain) parallelization.
 
-TPU-native replacement for the reference's MPI communicator hierarchy
+Batched replacement for the reference's MPI communicator hierarchy
 (reference: scale/common/common_mpi_scale.f90:517-921 — COMM_e ensemble
 communicator, COMM_d 2-D domain decomposition, member↔node mapping
 set_mem_node_proc :367). Here the whole hierarchy is one

@@ -11,7 +11,7 @@ Reference semantics reproduced (with citations):
 - `state_to_history` (common_scale.f90:1292-1404): analysis vars + rh + height
   → obs-operator field view with surface diagnostics
 
-TPU-native design: the state is a flax-free pytree dataclass of stacked
+Array-native design: the state is a flax-free pytree dataclass of stacked
 arrays with layout (..., nz, ny, nx) — variables stacked on a leading axis so
 member/variable batching vmaps cleanly and XLA fuses the pointwise
 thermodynamics into one kernel. No halos are stored; the obs-operator view is

@@ -1,13 +1,15 @@
 """ctypes loader for the native C++ codec (native/libfortseq.so).
 
-Builds the shared library on first use if a toolchain is available; callers
-must handle `load() is None` and fall back to pure-NumPy paths.
+The shared library is a build product, not part of the source tree: it is
+built from native/fortseq.cpp on first use, and rebuilt whenever the
+source is newer. Callers must handle `load() is None` (no toolchain) and
+fall back to pure-NumPy paths.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
+import fcntl
 import subprocess
 from pathlib import Path
 
@@ -16,18 +18,36 @@ _LIB = None
 _TRIED = False
 
 
+def _stale(so: Path, src: Path) -> bool:
+    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+
+
+def build(native_dir: Path = _NATIVE_DIR) -> Path:
+    """Build libfortseq.so in native_dir if it is missing or older than
+    fortseq.cpp, and return its path. A lock file serializes concurrent
+    builders (parallel test workers); subprocess errors propagate."""
+    so = native_dir / "libfortseq.so"
+    src = native_dir / "fortseq.cpp"
+    if not _stale(so, src):
+        return so
+    with open(native_dir / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _stale(so, src):
+            subprocess.run(["make", "-B", "-C", str(native_dir),
+                            "libfortseq.so"], check=True,
+                           capture_output=True, timeout=120)
+    return so
+
+
 def load() -> ctypes.CDLL | None:
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
     _TRIED = True
-    so = _NATIVE_DIR / "libfortseq.so"
-    if not so.exists():
-        try:
-            subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
+    try:
+        so = build()
+    except (OSError, subprocess.SubprocessError):
+        return None
     try:
         lib = ctypes.CDLL(str(so))
     except OSError:

@@ -90,6 +90,24 @@ def test_sharded_analyze_transpose_is_alltoall():
     assert "full rematerialization" not in hlo
 
 
+def test_sharded_analyze_auto_avoids_fused_kernel(monkeypatch):
+    """On a mesh eigh_impl='auto' never picks the fused kernel, a custom
+    call the partitioner would gather the whole batch for. With the
+    backend reported as 'gpu', K=20 alone resolves to that kernel (which
+    cannot lower here); on the mesh it resolves to 'ns', which runs here
+    and equals the single-device analysis."""
+    from scale_letkf_tpu.ops import letkf_core as lc
+    grid, gues, ctx, cfg, z_full = make_case(K=20)
+    gues = gues.astype(jnp.float32)       # the kernel's dtype
+    anal_ref, _, _ = analyze(gues, ctx, cfg, grid, z_full)
+    monkeypatch.setattr(lc.jax, "default_backend", lambda: "gpu")
+    assert lc.resolve_eigh_impl("auto", 20, jnp.float32) == "ns_fused"
+    mesh = make_mesh(2, 2, 2)
+    anal_sh, _, _ = analyze(gues, ctx, cfg, grid, z_full, mesh=mesh)
+    np.testing.assert_allclose(np.asarray(anal_sh), np.asarray(anal_ref),
+                               rtol=1e-5, atol=1e-6)
+
+
 def test_sharded_analyze_adaptive_and_det():
     grid, gues, ctx, cfg, z_full = make_case(
         letkf_kw={"infl_mul": 1.0, "infl_mul_adaptive": True})

@@ -132,3 +132,10 @@ def test_pressure_eos_matches_state_trans():
     p = moist_pressure(s.rhot, q_mr)
     anal = state_trans(to_collocated(s))
     np.testing.assert_allclose(np.asarray(p), np.asarray(anal[4]), rtol=1e-5)
+
+
+def test_removed_advection_option_raises():
+    """The tendency-backend switch is gone (only the XLA path remains):
+    asking for it is a named error, not a silent default."""
+    with pytest.raises(TypeError, match="advection"):
+        make_cfg(advection="pallas")

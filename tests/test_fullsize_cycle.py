@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 
 from scale_letkf_tpu.bench_fullsize import bench_18km_cycle, \
-    bench_radar_cycle
+    bench_radar_cycle, radar_cycle_resident
 
 SMALL = {"nx": 16, "ny": 16, "nz": 12}
 
@@ -37,6 +37,21 @@ def test_radar_cycle_coarse():
     assert np.isfinite(out["total_s"])
 
 
+def test_radar_cycle_resident_coarse():
+    """The device-resident radar cycle chip_smoke.py runs at full size, on
+    a coarsened grid: the full 30-s window, finite analysis, REF obs with
+    echoes, and the analysis fits them at least as well as the guess."""
+    import jax.numpy as jnp
+    rep, ens = radar_cycle_resident(
+        overrides=dict(SMALL, dx=3000.0, dy=3000.0), members=4,
+        member_batch=2, tile_rows=4, n_obs_target=4000)
+    assert rep["steps"] == 15 and rep["members"] == 4
+    assert bool(jnp.isfinite(ens.mean).all())
+    sg, sa = rep["stats_gues"], rep["stats_anal"]
+    assert sg.nobs["REF"] > 100
+    assert sa.rmse["REF"] <= sg.rmse["REF"]
+
+
 def test_osse_impact_coarsened():
     """Multi-cycle OSSE with a no-DA control (coarsened shape of the
     bench_osse_impact experiment): by the last cycle the DA system's
@@ -58,5 +73,5 @@ def test_osse_impact_coarsened():
     # the DA system beats the free-running control by the final cycle
     # (the truth carries unmodeled solar forcing the control cannot know
     # about; the margin grows with cycle length — the full-size
-    # experiment in docs/OSSE_IMPACT_r05.json uses 30-min cycles)
+    # bench_osse_impact experiment uses 30-min cycles)
     assert g[-1] < c[-1] * 0.97

@@ -1,10 +1,13 @@
-"""Newton–Schulz inverse-sqrt backend: accuracy vs eigh, and letkf_core
-'ns' backend parity vs the 'lax' eigendecomposition path (SURVEY.md §4a)."""
+"""Newton–Schulz inverse-sqrt backends: accuracy vs eigh, letkf_core 'ns'
+backend parity vs the 'lax' eigendecomposition path (SURVEY.md §4a), and
+the fused Pallas kernel (interpreted here; compiled on the GPU)."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from scale_letkf_tpu.ops.invsqrt import invsqrt_newton_schulz
+from scale_letkf_tpu.ops.invsqrt import (
+    fused_width, invsqrt_newton_schulz, invsqrt_ns_fused)
 from scale_letkf_tpu.ops.letkf_core import letkf_core
 
 
@@ -42,32 +45,92 @@ def test_invsqrt_identity_exact():
                                atol=1e-12)
 
 
-def test_letkf_core_ns_pallas_matches_lax():
-    """Fused-VMEM Pallas NS backend parity (runs on TPU only; the suite's
-    CPU runs skip it — the kernel was hardware-validated to ~1e-5 vs f64
-    eigh across cond 1e2-1e4 and NaN-free to 1e6, see ops/invsqrt.py)."""
+def _letkf_gram(rng, B, K, cond):
+    """LETKF-shaped Grams: rank-30 HᵀH plus the inflation shift (K-1)·I,
+    scaled to condition number `cond`. Returns (C, shift)."""
+    h = rng.standard_normal((B, 30, K))
+    s = np.einsum("blk,blj->bkj", h, h)
+    lmax = np.linalg.eigvalsh(s)[:, -1]
+    s *= ((cond - 1.0) * (K - 1) / lmax)[:, None, None]
+    return s + (K - 1) * np.eye(K), np.full(B, K - 1.0)
+
+
+def _eigh_isq_inv(c):
+    w, v = np.linalg.eigh(c)
+    return (np.einsum("...ik,...k,...jk->...ij", v, 1.0 / np.sqrt(w), v),
+            np.einsum("...ik,...k,...jk->...ij", v, 1.0 / w, v))
+
+
+def _check_fused(c, shift, interpret, cond):
+    isq, inv = invsqrt_ns_fused(jnp.asarray(c, jnp.float32),
+                                jnp.asarray(shift, jnp.float32),
+                                interpret=interpret)
+    isq_ref, inv_ref = _eigh_isq_inv(c)
+    # float32 inverse square root: ~cond·eps32 relative error
+    tol = 50.0 * cond * 6e-8
+    for got, ref in ((isq, isq_ref), (inv, inv_ref)):
+        got = np.asarray(got, np.float64)
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("K", [8, 15, 50, 64])
+def test_ns_fused_interpret_matches_eigh(K):
+    """The fused kernel's arithmetic (Pallas interpreter) against float64
+    eigh at ensemble sizes it serves; K pads to 16/16/64/64."""
+    c, shift = _letkf_gram(np.random.default_rng(K), 3, K, 1e3)
+    _check_fused(c, shift, interpret=True, cond=1e3)
+
+
+def test_ns_fused_refuses_wider_than_64():
+    """K=100 pads to 128, whose dot operands overflow a block's shared
+    memory on the H100: a named error, before any compile."""
+    c, shift = _letkf_gram(np.random.default_rng(100), 2, 100, 1e2)
+    with pytest.raises(ValueError, match="K <= 64"):
+        invsqrt_ns_fused(jnp.asarray(c, jnp.float32),
+                         jnp.asarray(shift, jnp.float32), interpret=True)
+
+
+def test_ns_fused_interpret_batch_shapes():
+    """Leading batch dims of any shape (here 2x3, one program per matrix)
+    and a zero-obs Gram (s·I) that must come back exact."""
+    rng = np.random.default_rng(1)
+    c, shift = _letkf_gram(rng, 6, 20, 1e2)
+    c[2] = 19.0 * np.eye(20)
+    c = c.reshape(2, 3, 20, 20)
+    shift = shift.reshape(2, 3)
+    _check_fused(c, shift, interpret=True, cond=1e2)
+    isq, _ = invsqrt_ns_fused(jnp.asarray(c, jnp.float32),
+                              jnp.asarray(shift, jnp.float32),
+                              interpret=True)
+    np.testing.assert_allclose(np.asarray(isq)[0, 2],
+                               np.eye(20) / np.sqrt(19.0), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_fused_width():
+    assert [fused_width(k) for k in (3, 8, 16, 17, 50, 64, 100, 128)] == \
+        [16, 16, 16, 32, 64, 64, 128, 128]
+
+
+def test_ns_fused_rejects_float64():
+    with pytest.raises(ValueError, match="float32"):
+        invsqrt_ns_fused(jnp.eye(4, dtype=jnp.float64)[None],
+                         jnp.ones(1, jnp.float64), interpret=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [15, 20, 50, 64])
+def test_ns_fused_compiled_matches_eigh(K):
+    """The kernel as Triton compiles it for the card (TF32x3 bulk phase)
+    against float64 eigh, cond 1e2..1e4."""
     import jax
-    import pytest
-    if jax.default_backend() != "tpu":
-        pytest.skip("ns_pallas requires a TPU backend")
-    rng = np.random.default_rng(3)
-    B, L, K = 64, 30, 50
-    hdxb = rng.standard_normal((B, L, K)).astype(np.float32)
-    rdiag = rng.uniform(0.5, 2.0, (B, L)).astype(np.float32)
-    rloc = rng.uniform(0.0, 1.0, (B, L)).astype(np.float32)
-    rloc[:4] = 0.0              # zero-obs rows
-    dep = rng.standard_normal((B, L)).astype(np.float32)
-    infl = np.full(B, 1.1, np.float32)
-    args = (jnp.asarray(hdxb), jnp.asarray(rdiag), jnp.asarray(rloc),
-            jnp.asarray(dep), jnp.asarray(infl))
-    r_lax = letkf_core(*args, infl_update=True, eigh_impl="lax")
-    r_pal = letkf_core(*args, infl_update=True, eigh_impl="ns_pallas")
-    scale = float(np.abs(np.asarray(r_lax.trans)).max())
-    np.testing.assert_allclose(np.asarray(r_pal.trans),
-                               np.asarray(r_lax.trans),
-                               atol=1e-4 * scale)
-    np.testing.assert_allclose(np.asarray(r_pal.transm),
-                               np.asarray(r_lax.transm), atol=1e-3)
+    if jax.default_backend() != "gpu":
+        pytest.skip("compiles a Triton kernel: needs a GPU")
+    rng = np.random.default_rng(K)
+    for cond in (1e2, 1e3, 1e4):
+        c, shift = _letkf_gram(rng, 64, K, cond)
+        _check_fused(c, shift, interpret=False, cond=cond)
 
 
 def test_letkf_core_ns_matches_lax():

@@ -28,7 +28,7 @@ def _case(mesh=None):
     cfg = Config(ensemble=EnsembleConfig(member=K),
                  letkf=LetkfConfig(infl_mul=1.02, relax_alpha=0.2,
                                    # LAPACK eigh is the fast CPU backend;
-                                   # on TPU 'auto' resolves to the
+                                   # at K=1024 'auto' resolves to the
                                    # Newton-Schulz matmul path
                                    eigh_impl="lax"))
     cfg.letkf_obs.hori_local = tuple([3.0 * DX] + [-1.0] * 23)

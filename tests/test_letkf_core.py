@@ -172,3 +172,36 @@ def test_relax_beta():
     beta = relax_beta(d, z, buffer_width=100e3, radar_only=True,
                       radar_zmax=10e3, vert_cutoff=1e3)
     np.testing.assert_allclose(beta, [0.01, 0.5, 0.0], atol=1e-12)
+
+
+@pytest.mark.parametrize("backend,K,dtype,sharded,expected", [
+    ("gpu", 8, jnp.float32, False, "jacobi"),
+    ("gpu", 15, jnp.float32, False, "ns_fused"),
+    ("gpu", 17, jnp.float32, False, "ns_fused"),
+    ("gpu", 50, jnp.float32, False, "ns_fused"),
+    ("gpu", 64, jnp.float32, False, "ns_fused"),
+    ("gpu", 100, jnp.float32, False, "ns"),
+    ("gpu", 1024, jnp.float32, False, "ns"),
+    ("gpu", 50, jnp.float64, False, "ns"),
+    ("cpu", 50, jnp.float32, False, "ns"),
+    ("gpu", 50, jnp.float32, True, "ns"),
+    ("gpu", 8, jnp.float32, True, "jacobi"),
+])
+def test_auto_routing(monkeypatch, backend, K, dtype, sharded, expected):
+    """eigh_impl='auto' picks the backend from K, the dtype, the platform
+    JAX reports (patched here) and whether a mesh splits the batch."""
+    from scale_letkf_tpu.ops import letkf_core as lc
+    monkeypatch.setattr(lc.jax, "default_backend", lambda: backend)
+    assert lc.resolve_eigh_impl("auto", K, dtype, sharded) == expected
+    assert lc.resolve_eigh_impl("lax", K, dtype, sharded) == "lax"
+
+
+@pytest.mark.parametrize("impl", ["ns_pallas", "eigh"])
+def test_unknown_eigh_impl_raises(impl):
+    """Removed or misspelled backends are named errors, not silent
+    fallbacks."""
+    rng = np.random.default_rng(0)
+    hdxb, rdiag, rloc, dep, infl, _ = make_problem(rng, 2, 5, 4)
+    with pytest.raises(ValueError, match=impl):
+        letkf_core(jnp.asarray(hdxb), jnp.asarray(rdiag), jnp.asarray(rloc),
+                   jnp.asarray(dep), jnp.asarray(infl), eigh_impl=impl)

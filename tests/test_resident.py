@@ -7,6 +7,7 @@ common_mpi_scale.f90:367-512)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from scale_letkf_tpu.da.bigcycle import StreamedCycle
 from scale_letkf_tpu.da.resident import ResidentCycle, ResidentEnsemble
@@ -99,3 +100,13 @@ def test_resident_4d_slots_matches_streamed():
     sprd = ensval_s[:, good].std(axis=0)
     assert (diff <= 0.2 * sprd[None] + 1e-3).all(), \
         f"max diff {diff.max()} vs spread {sprd.max()}"
+
+
+@pytest.mark.parametrize("backend,expected", [("gpu", True),
+                                              ("cpu", False)])
+def test_donate_on_every_backend_but_cpu(monkeypatch, backend, expected):
+    """The resident executor's in-place updates donate their buffers on the
+    GPU (and any non-CPU backend); the CPU backend ignores donation."""
+    from scale_letkf_tpu.da import resident
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert resident._donate() is expected
